@@ -1,0 +1,2 @@
+"""kernels — the port's hand-written CUDA kernels and their plain PyTorch
+versions (ref.py)."""
