@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero and prints no result:
 
 1. Build: compile the lookup kernel (src/repro_torch/kernels/csrc) with
-   nvcc for sm_90a into build/.
+   nvcc for sm_90a into src/repro_torch/kernels/build/.
 2. Kernel: the hand-written lookup kernel against its plain PyTorch
    version on the card, bit for bit, over 1, 2, 8 and 20 segments with
    mixed bucket counts, max_matches 1, 8 and 64, absent, EMPTY and
@@ -284,28 +284,31 @@ def time_b1(torch, dev, batch, q, snap, m, flush):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err)
 
 
-def profile_ops(torch, ops):
-    """Device time by kernel for one run of each operation, from
-    torch.profiler: wall ms, device-busy ms, and the heaviest kernels."""
+def profile_ops(torch, ops, reps=3):
+    """Device time by kernel for each operation, from torch.profiler,
+    against the operation's unprofiled synchronized wall time: the
+    profiler's own host cost inflates a traced call's wall time several
+    times over, so the idle share is device-busy ms over ``host_ms``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for name, fn in ops:
         fn()                                     # warm
+        wall = host_ms(torch, fn, reps)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
+            traced = (time.perf_counter() - t0) * 1e3
         kernels = [(ev.self_device_time_total / 1e3, ev.count, ev.key[:60])
                    for ev in prof.key_averages()
                    if ev.device_type == DeviceType.CUDA
                    and ev.self_device_time_total > 0]
         kernels.sort(reverse=True)
         busy = sum(k[0] for k in kernels)
-        emit({"profile": name, "wall_ms": wall,
+        emit({"profile": name, "host_ms": wall, "traced_wall_ms": traced,
               "device_busy_ms": busy if kernels else None,
               "device_idle_share": 1 - busy / wall if kernels else None,
               "top": [{"kernel": k, "ms": t, "count": c}
@@ -474,7 +477,7 @@ def slice_phase(torch, np, dev, timings):
     emit({"metric": "peak_device_bytes",
           "value": torch.cuda.max_memory_allocated(dev)})
 
-    spare = [make(APPEND_ROWS) for _ in range(3)]
+    spare = [make(APPEND_ROWS) for _ in range(6)]
     chain = [frame.append(spare.pop())]
 
     def append_donated():

@@ -42,21 +42,19 @@ def as_int64_keys(keys, device: torch.device) -> torch.Tensor:
 
 
 def indexed_lookup(table: IndexedTable, keys, *, max_matches: int,
-                   names=None, fused: bool = True):
+                   names=None):
     """Point lookup: rows for each key, newest-first.  Returns
-    (cols dict with shape [Q, max_matches], valid [Q, max_matches]).
-
-    ``fused=False`` runs the segment-looped reference path."""
+    (cols dict with shape [Q, max_matches], valid [Q, max_matches])."""
     check_max_matches(max_matches)
     keys = as_int64_keys(keys, table.device)
-    rids, _ = table.lookup(keys, max_matches, fused=fused)
+    rids, _ = table.lookup(keys, max_matches)
     valid = rids != NULL_PTR
-    cols = table.gather_rows(rids.clamp_min(0), names=names, fused=fused)
+    cols = table.gather_rows(rids.clamp_min(0), names=names)
     return cols, valid
 
 
 def indexed_join(table: IndexedTable, probe_cols: dict, probe_key: str, *,
-                 max_matches: int, names=None, fused: bool = True):
+                 max_matches: int, names=None):
     """Equi-join: ``table`` (indexed) is the build side; ``probe_cols``
     rows probe it.
 
@@ -65,7 +63,7 @@ def indexed_join(table: IndexedTable, probe_cols: dict, probe_key: str, *,
     """
     keys = on_device(probe_cols[probe_key], torch.int64, table.device)
     build_cols, valid = indexed_lookup(table, keys, max_matches=max_matches,
-                                       names=names, fused=fused)
+                                       names=names)
     m = valid.shape[1]
     probe_b = {}
     for k, v in probe_cols.items():

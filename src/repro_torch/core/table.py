@@ -187,13 +187,11 @@ class IndexedTable:
 
     # -- point operations ------------------------------------------------------
 
-    def probe_latest(self, keys, *, fused: bool = True) -> torch.Tensor:
+    def probe_latest(self, keys) -> torch.Tensor:
         """Global row id of the *latest* row per key (NULL_PTR if absent):
         delta indexes probed newest -> oldest, first hit wins (the
         snapshot read of paper §III-E)."""
         self._check_live()
-        if not fused:
-            return self.probe_latest_ref(keys)
         return kops.fused_probe(self._keys(keys), self.snapshot)
 
     def probe_latest_ref(self, keys) -> torch.Tensor:
@@ -206,11 +204,9 @@ class IndexedTable:
             out = torch.where(out == NULL_PTR, hit, out)
         return out
 
-    def gather_prev(self, rids, *, fused: bool = True) -> torch.Tensor:
+    def gather_prev(self, rids) -> torch.Tensor:
         """prev[rid] across segments (NULL for NULL/out-of-range input)."""
         self._check_live()
-        if not fused:
-            return self.gather_prev_ref(rids)
         prev = self.snapshot.prev
         rids = on_device(rids, PTR_DTYPE, self.device)
         in_range = (rids >= 0) & (rids < self.snapshot.fill)
@@ -228,13 +224,11 @@ class IndexedTable:
             out = torch.where(in_seg, got, out)
         return out
 
-    def lookup(self, keys, max_matches: int, *, fused: bool = True):
+    def lookup(self, keys, max_matches: int):
         """[Q] keys -> ([Q, max_matches] global row ids newest-first,
         truncated flags): the paper's point lookup, probe + backward-
         pointer traversal fused into one pass over the Snapshot."""
         self._check_live()
-        if not fused:
-            return self.lookup_ref(keys, max_matches)
         return kops.fused_lookup(self._keys(keys), self.snapshot,
                                  max_matches=max_matches)
 
@@ -248,12 +242,10 @@ class IndexedTable:
                               torch.full_like(cur, NULL_PTR))
         return torch.stack(rows, dim=1), cur >= 0
 
-    def gather_rows(self, rids, names=None, *, fused: bool = True) -> dict:
+    def gather_rows(self, rids, names=None) -> dict:
         """Decode rows for global row ids (zeros where rid out of range or
         at/past ``fill``: reserved arena lanes never decode)."""
         self._check_live()
-        if not fused:
-            return self.gather_rows_ref(rids, names=names)
         data = self._flat_data()
         rids = on_device(rids, PTR_DTYPE, self.device)
         in_range = (rids >= 0) & (rids < self.snapshot.fill)

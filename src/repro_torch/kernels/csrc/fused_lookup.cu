@@ -99,22 +99,33 @@ __global__ void fused_lookup_kernel(const long long* __restrict__ query,
 extern "C" {
 
 // Launches on `stream` of `device` and returns the CUDA error code
-// (0 = launched).
+// (0 = launched).  The calling thread's current device is restored before
+// returning.
 int fused_lookup_launch(int device, const long long* query,
                         long long num_queries, const void* segs,
                         int num_segments, int slots, const int* prev,
                         long long capacity, const int* fill, int max_matches,
                         int* rows, int* last, void* stream) {
   if (num_queries <= 0) return 0;
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
+  int caller_device = 0;
+  cudaError_t err = cudaGetDevice(&caller_device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (caller_device != device) {
+    err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int threads = 256;
   const long long blocks = (num_queries + threads - 1) / threads;
   fused_lookup_kernel<<<static_cast<unsigned int>(blocks), threads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       query, num_queries, static_cast<const SegDesc*>(segs), num_segments,
       slots, prev, capacity, fill, max_matches, rows, last);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (caller_device != device) {
+    const cudaError_t restore = cudaSetDevice(caller_device);
+    if (err == cudaSuccess) err = restore;
+  }
+  return static_cast<int>(err);
 }
 
 const char* fused_lookup_error_string(int code) {

@@ -6,10 +6,10 @@ probe + chain walk over a Snapshot, in one launch for any number of
 segments (kernels/csrc/fused_lookup.cu says what it computes and what
 bounds it).  Its plain PyTorch version is ``ref.fused_lookup_ref``.
 
-The source is compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the
-root of the checkout on first use, and bound through ``ctypes`` with a
-plain C interface.  A failed build or launch raises; nothing here falls
-back to the plain version.  The kernel launches on PyTorch's current
+The source (shipped as package data) is compiled by ``nvcc`` for
+``sm_90a`` on first use into ``build/`` beside this module, which must be
+writable, and bound through ``ctypes`` with a plain C interface.  A failed
+build or launch raises; nothing here falls back to the plain version.  The kernel launches on PyTorch's current
 stream and does not synchronize.
 
 ``LAUNCHES`` counts launches of the kernel: a plain integer that run
@@ -29,7 +29,7 @@ from pathlib import Path
 import torch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "fused_lookup.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

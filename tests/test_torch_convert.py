@@ -68,7 +68,7 @@ def cols(rng, n, key_range=50, tag0=0):
 @pytest.mark.parametrize("layout", ["row", "columnar"])
 def test_jax_state_converts_to_port(layout):
     rng = np.random.default_rng(0)
-    jt = jcreate(cols(rng, 200), JSCH, rows_per_batch=32, layout=layout,
+    jt = jcreate(cols(rng, 40), JSCH, rows_per_batch=16, layout=layout,
                  reserve=0)
     for i in range(3):
         jt = japp(jt, cols(rng, 40, tag0=1000 * (i + 1)), mode="segment")

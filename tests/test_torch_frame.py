@@ -16,6 +16,10 @@ from repro_torch.core.hashing import StringDictionary
 
 SPEC = dict(user_id="int64", score="float32", country="int32")
 SCH, JSCH = Schema.of("user_id", **SPEC), JSchema.of("user_id", **SPEC)
+# one table size, batch size and query shape across the tests, so the JAX
+# side compiles each of its programs once per worker
+N, RPB = 700, 64
+Q = np.arange(-2, 95, dtype=np.int64)
 
 
 def users(rng, n, key_range=10_000):
@@ -39,11 +43,11 @@ def test_quickstart_twin():
     same answers, versions and explain() strings on both packages."""
     rng = np.random.default_rng(0)
     # 1. createIndex
-    base = users(rng, 50_000)
-    df = IndexedFrame.from_columns(base, SCH, rows_per_batch=4096,
+    base = users(rng, N)
+    df = IndexedFrame.from_columns(base, SCH, rows_per_batch=RPB,
                                    device="cpu")
-    jdf = JFrame.from_columns(base, JSCH, rows_per_batch=4096)
-    assert df.num_rows() == int(jdf.num_rows()) == 50_000
+    jdf = JFrame.from_columns(base, JSCH, rows_per_batch=RPB)
+    assert df.num_rows() == int(jdf.num_rows()) == N
     assert df.index_nbytes() == int(jdf.index_nbytes())
     assert df.data_nbytes() == int(jdf.data_nbytes())
     # 2. point lookup
@@ -64,14 +68,15 @@ def test_quickstart_twin():
     assert float(r2["score"][0, 0]) == np.float32(9.99)
     same(df.lookup(key, max_matches=32)[0], jr)
     # ... and a list of deltas coalesces into one append
-    deltas = [users(rng, 256) for _ in range(4)]
+    deltas = [users(rng, n) for n in (20, 10, 10, 10)]
     df3, jdf3 = df2.append(deltas), jdf2.append(deltas)
     assert df3.version == int(jdf3.version) == 2
     # 4. indexed join
-    events = {"user_id": rng.choice(base["user_id"], 1000).astype(np.int64),
-              "event": np.arange(1000, dtype=np.int32)}
-    b, p, v = df3.join(events, "user_id", max_matches=8)
-    jb, jp, jv = jdf3.join(events, "user_id", max_matches=8)
+    events = {"user_id": rng.choice(base["user_id"], len(Q)).astype(
+                  np.int64),
+              "event": np.arange(len(Q), dtype=np.int32)}
+    b, p, v = df3.join(events, "user_id", max_matches=16)
+    jb, jp, jv = jdf3.join(events, "user_id", max_matches=16)
     same(b, jb)
     same(p, jp)
     same(v, jv)
@@ -86,8 +91,8 @@ def test_quickstart_twin():
 @pytest.mark.parametrize("layout", ["row", "columnar"])
 def test_frame_reads_and_writes_match_jax(layout):
     rng = np.random.default_rng(1)
-    base = users(rng, 700, key_range=90)
-    kw = dict(rows_per_batch=64, layout=layout)
+    base = users(rng, N, key_range=90)
+    kw = dict(rows_per_batch=RPB, layout=layout)
     df = IndexedFrame.from_columns(base, SCH, device="cpu", **kw)
     jdf = JFrame.from_columns(base, JSCH, **kw)
     d = users(rng, 50, key_range=90)
@@ -97,38 +102,34 @@ def test_frame_reads_and_writes_match_jax(layout):
     df, jdf = df.append(d, mode="segment"), jdf.append(d, mode="segment")
     df, jdf = df.compact(), jdf.compact()
     assert df.version == int(jdf.version) == 3
-    q = np.arange(-2, 95, dtype=np.int64)
     for names in (None, ("score",)):
-        c, v = df.lookup(q, max_matches=16, names=names, op="local")
-        jc, jv = jdf.lookup(q, max_matches=16, names=names, op="local")
+        c, v = df.lookup(Q, max_matches=16, names=names, op="local")
+        jc, jv = jdf.lookup(Q, max_matches=16, names=names, op="local")
         same(c, jc)
         same(v, jv)
 
 
 def test_donated_frame_append_matches_jax():
     rng = np.random.default_rng(2)
-    base = users(rng, 300, key_range=40)
-    df = IndexedFrame.from_columns(base, SCH, rows_per_batch=64,
+    base = users(rng, N, key_range=40)
+    df = IndexedFrame.from_columns(base, SCH, rows_per_batch=RPB,
                                    device="cpu")
-    jdf = JFrame.from_columns(base, JSCH, rows_per_batch=64)
-    d = users(rng, 20, key_range=40)
+    jdf = JFrame.from_columns(base, JSCH, rows_per_batch=RPB)
+    d = users(rng, 50, key_range=40)
     df2, jdf2 = df.append(d, donate=True), jdf.append(d, donate=True)
-    q = np.arange(40, dtype=np.int64)
-    same(df2.lookup(q, max_matches=20)[0], jdf2.lookup(q, max_matches=20)[0])
+    same(df2.lookup(Q, max_matches=16)[0], jdf2.lookup(Q, max_matches=16)[0])
     with pytest.raises(RuntimeError):
-        df.lookup(q)
+        df.lookup(Q)
 
 
 def test_string_keys_hash_like_jax():
-    sch = Schema.of("carrier", carrier="int64", delay="float32")
-    jsch = JSchema.of("carrier", carrier="int64", delay="float32")
-    names = np.asarray(["UA", "AA", "DL", "UA", "WN", "AA", "UA"])
-    cols = {"carrier": names,
-            "delay": np.arange(7, dtype=np.float32)}
-    df = IndexedFrame.from_columns(cols, sch, rows_per_batch=16,
+    rng = np.random.default_rng(5)
+    cols = users(rng, N)
+    cols["user_id"] = rng.choice(np.asarray(["UA", "AA", "DL", "WN"]), N)
+    df = IndexedFrame.from_columns(cols, SCH, rows_per_batch=RPB,
                                    dictionary=StringDictionary(),
                                    device="cpu")
-    jdf = JFrame.from_columns(cols, jsch, rows_per_batch=16,
+    jdf = JFrame.from_columns(cols, JSCH, rows_per_batch=RPB,
                               dictionary=JDict())
     from repro_torch.core.hashing import hash_strings_host
     q = hash_strings_host(np.asarray(["UA", "AA", "XX"]))
@@ -143,10 +144,10 @@ def test_string_keys_hash_like_jax():
 ])
 def test_frame_validation_matches_jax(bad):
     rng = np.random.default_rng(3)
-    base = users(rng, 50, key_range=10)
-    df = IndexedFrame.from_columns(base, SCH, rows_per_batch=16,
+    base = users(rng, N, key_range=10)
+    df = IndexedFrame.from_columns(base, SCH, rows_per_batch=RPB,
                                    device="cpu")
-    jdf = JFrame.from_columns(base, JSCH, rows_per_batch=16)
+    jdf = JFrame.from_columns(base, JSCH, rows_per_batch=RPB)
     keys = bad.pop("keys", np.arange(3, dtype=np.int64))
     with pytest.raises(ValueError) as port_err:
         df.lookup(keys, **bad)

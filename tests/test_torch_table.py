@@ -72,9 +72,9 @@ def test_arena_sequence_with_promotion(layout):
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_segment_mode_and_compaction_threshold(layout):
     rng = np.random.default_rng(2)
-    pair = make_pair(2, layout=layout, reserve=0)
-    for i in range(4):
-        pair = step(pair, cols(rng, 21, tag0=100 * (i + 1)), mode="segment",
+    pair = make_pair(2, n=40, layout=layout, reserve=0)
+    for i in range(3):                  # the third trips the threshold
+        pair = step(pair, cols(rng, 13, tag0=100 * (i + 1)), mode="segment",
                     compact_threshold=3)
         assert_same_state(*pair)
     assert pair[0].num_segments <= 3
@@ -87,7 +87,7 @@ def test_segment_mode_and_compaction_threshold(layout):
 def test_arena_promotion_trips_threshold():
     rng = np.random.default_rng(3)
     pair = make_pair(3, n=40, reserve=0)
-    for i in range(4):
+    for i in range(3):                  # the second trips the threshold
         pair = step(pair, cols(rng, 40, tag0=100 * (i + 1)),
                     compact_threshold=2)
         assert pair[0].num_segments <= 2
@@ -97,10 +97,10 @@ def test_arena_promotion_trips_threshold():
 
 def test_sparse_valid_delta_promotes():
     rng = np.random.default_rng(7)
-    pair = make_pair(7, reserve=0)
-    valid = np.zeros(300, bool)
-    valid[::7] = True
-    pair = step(pair, cols(rng, 300, tag0=1000), valid)
+    pair = make_pair(7, n=40, reserve=0)
+    valid = np.zeros(40, bool)
+    valid[::3] = True                   # 14 valid rows > 8 spare lanes
+    pair = step(pair, cols(rng, 40, tag0=1000), valid)
     assert pair[0].num_segments == 2
     assert_same_state(*pair)
     assert_same_reads(*pair)
@@ -130,7 +130,7 @@ def test_capacity_policy_matches_jax():
 
 
 def test_compact_returns_reserved_arena():
-    port, jt = make_pair(11, n=60, reserve=0)
+    port, jt = make_pair(11, n=40, reserve=0)
     port2, jt2 = compact(port, reserve=500), jcompact(jt, reserve=500)
     assert port2.capacity == jt2.capacity >= 500
     assert port2.version == int(jt2.version) == 1
